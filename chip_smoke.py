@@ -8,20 +8,38 @@ Run from the repository root: ``python3 chip_smoke.py``. It
                 with nvcc (one process per source, all at once) and counts
                 the integer operations of one emulated multiply in the SASS
                 of the probe kernels;
-  3. kernels:   runs B2 (bit-exact conv), B3 (bit-exact matmul) and B4
-                (stacked emulator) at the main path's shapes, holds each
-                against its plain PyTorch version on the card (bitwise), and
-                times both beside the operations bound;
+  3. kernels:   runs B2 (bit-exact conv), B3 (bit-exact matmul), B4
+                (stacked emulator), B5 (fused surrogate GEMM with its noise
+                epilogue; a projection, the LM head and a population of 8),
+                B6 (folded moments) and B7 (unfolded moments) at the main
+                paths' shapes, holds each against its plain PyTorch version
+                on the card (bitwise), and times kernel, plain version and,
+                for B5-B7, the cuBLAS spelling beside the bound;
   4. main_path: sets every launch count to 0 and drives the paper's pipeline
                 through the port's entry points: parameters, calibration
                 (one B4 launch), exact accuracy on 2000 test images, the
                 Fig. 2(a) uniform study, NSGA-II at K=2, bit-exact
                 validation of the knee (B2), its displacement study, and
                 the engine's bit-exact matmul (B3); then reads the counts;
-  5. checks:    calibration on the card equals the CPU's bitwise, bit-exact
+  5. lm_forward: xlstm-125m at full width (12 layers, d 768, vocab 50304,
+                bf16, random parameters from a seed) on a synthetic batch of
+                8 x 512 tokens: the loss under exact numerics and under the
+                engine's surrogate_fused numerics (uniform:pm_csi and rr:8),
+                one warm-up and three timed forwards each, the counts set to
+                0 before each timed forward and read after it (B5: 61 per
+                surrogate forward, one per weight projection); then one more
+                rr:8 forward under torch.profiler (device time by kernel
+                group, the device's busy share of the wall time);
+  6. engine:    the surrogate_fused matmul's return_moments (B6) and the
+                noisy unfolded matmul ops.am_surrogate_matmul (B7), counts
+                set to 0 before and read after;
+  7. checks:    calibration on the card equals the CPU's bitwise, bit-exact
                 CNN features on the card equal the CPU plain path bitwise,
                 every AM accuracy is within 0.05 of exact and every AM PDP
-                below exact.
+                below exact; the LM losses are finite, each surrogate loss
+                within 1% of the exact loss, and the SMOKE LM's float32
+                forward through B5 on the card (noise-free policy
+                uniform:exact) within 5e-4 of its largest logit of the CPU's.
 
 Each phase prints one JSON line. Then come the kernels line, the nvidia-smi
 line and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -29,6 +47,7 @@ before the last line. Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import re
@@ -45,6 +64,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT_LANES_PER_SM = 64
 DISPATCH_LANES_PER_SM = 128
+FP32_LANES_PER_SM = 128  # an FFMA a lane and clock: 2 flops
 
 # SASS opcodes that move data, steer control or run on the uniform datapath:
 # not arithmetic of the multiply.
@@ -110,6 +130,42 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Device kernels grouped by name for the forward's profile.
+_KERNEL_GROUPS = (("B5", "surrogate_matmul_kernel"), ("gemm", "gemm"), ("gemm", "nvjet"),
+                  ("gemm", "cutlass"), ("reduce", "reduce"), ("elementwise", "elementwise"))
+
+
+def profile_forward(fn) -> dict:
+    """Wall and device time of one call of fn under torch.profiler: device
+    time by kernel group, the ten longest kernels, and the device's busy
+    share of the wall time (kernels of one stream do not overlap). Device
+    times are None when the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # Device events only: the CPU ops that launched them carry their time too.
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_ms": None, "busy_share": None}
+    groups: dict[str, float] = {}
+    for name, ms, _ in kernels:
+        g = next((g for g, pat in _KERNEL_GROUPS if pat in name.lower()), "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    device_ms = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "kernel_launches": sum(c for _, _, c in kernels), "device_ms_by_group": groups,
+            "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
+
+
 def main() -> int:
     import torch
 
@@ -120,12 +176,14 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch.core import engine, hwmodel, schemes, surrogate
-    from repro_torch.data import cifar_like
+    from repro_torch import weights
+    from repro_torch.configs import xlstm_125m
+    from repro_torch.core import amlinear, engine, hwmodel, schemes, surrogate
+    from repro_torch.data import cifar_like, synthetic
     from repro_torch.experiments import paper_cnn
-    from repro_torch.kernels import (approx_conv, approx_matmul, bitexact_emulator,
-                                     cuda_build, ops, ref)
-    from repro_torch.models import cnn
+    from repro_torch.kernels import (am_surrogate_matmul, approx_conv, approx_matmul,
+                                     bitexact_emulator, cuda_build, ops, ref)
+    from repro_torch.models import cnn, transformer
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -135,9 +193,11 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(nvidia_smi("clocks.max.sm"))
     int_ops_per_s = sms * INT_LANES_PER_SM * clock_mhz * 1e6
+    fp32_flops_per_s = sms * FP32_LANES_PER_SM * 2 * clock_mhz * 1e6
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi, "sms": sms,
           "max_sm_clock_mhz": clock_mhz, "int32_ops_per_s": int_ops_per_s,
+          "fp32_fma_flops_per_s": fp32_flops_per_s,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
@@ -175,12 +235,21 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
+    def gemm_bound(flops: float, nbytes: int):
+        """FP32 flops at the FMA peak (the card's cores, no tensor cores)
+        against bytes at the memory rate."""
+        return bound(flops / fp32_flops_per_s * sms * clock_mhz * 1e6, nbytes)
+
     def compare(got, want):
-        g, w = got.cpu().numpy(), want.cpu().numpy()
-        same = g.view(np.uint32) == w.view(np.uint32)
-        ulp = np.abs(g.view(np.int32).astype(np.int64) - w.view(np.int32).astype(np.int64))
-        return {"max_abs_err": float(np.nanmax(np.abs(g - w))) if g.size else 0.0,
-                "max_ulp": int(ulp.max()) if g.size else 0, "bitwise": bool(same.all())}
+        """On the card: max |got - want| (NaNs skipped), max ulp, bitwise."""
+        if not got.numel():
+            return {"max_abs_err": 0.0, "max_ulp": 0, "bitwise": True}
+        d = (got - want).abs()
+        d = d[~torch.isnan(d)]
+        gi, wi = got.view(torch.int32), want.view(torch.int32)
+        return {"max_abs_err": float(d.max()) if d.numel() else 0.0,
+                "max_ulp": int((gi.long() - wi.long()).abs().max()),
+                "bitwise": bool(torch.equal(gi, wi))}
 
     # -- 3. kernels, at the main path's shapes ----------------------------------
     kernels = {}
@@ -267,18 +336,112 @@ def main() -> int:
                      "multiplies": muls2, "ms": ms, "plain_ms": plain_ms,
                      "bound": bound(muls2 * cycles(per_mul["full"]), bytes2), **cmp2}
 
+    # B5, B6, B7 at xlstm-125m's shapes: M = 8 x 512 tokens, K = d = 768, a
+    # projection N = 768 and the head N = 50304; B5 also with a population
+    # of 8 on the weights. Weights as the LM folds them: wm ~ N(0, 1/K),
+    # wv = wm^2 * 1e-6 (sigma about 1e-3).
+    M, K, N, V, POP = 4096, 768, 768, 50304, 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def b5_library(x, wm, wv, z):
+        mean, var = torch.matmul(x, wm), torch.matmul(x * x, wv)
+        return mean + z * torch.sqrt(torch.clamp(var, min=0.0))
+
+    def surrogate_kernel(kid, name, kernel, fn, plain, library, shape, flops, nbytes,
+                         iters, plain_iters=2, plain_warmup=1):
+        def one(t):  # (mean, var) pairs compare as one tensor
+            return t if isinstance(t, torch.Tensor) else torch.stack(t)
+
+        got = fn()
+        torch.cuda.synchronize()
+        cmp = compare(one(got), one(plain()))
+        ms = time_ms(fn, iters, warmup=2)
+        plain_ms = time_ms(plain, plain_iters, warmup=plain_warmup)
+        library_ms = time_ms(library, iters, warmup=2)
+        kernels[kid] = {"name": name, "kernel": kernel,
+                        "source": "src/repro_torch/kernels/csrc/am_surrogate_matmul.cu",
+                        "replaces": {"B5": "src/repro/kernels/am_surrogate_matmul.py:188",
+                                     "B6": "src/repro/kernels/am_surrogate_matmul.py:114",
+                                     "B7": "src/repro/kernels/am_surrogate_matmul.py:67"}[
+                                         kid[:2]],
+                        "shape": shape, "flops": flops, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound": gemm_bound(flops, nbytes), **cmp}
+        del got
+
+    ck = ops.MATMUL_CHUNK_K
+    xs = randn(M, K)
+    for kid, n in (("B5", N), ("B5-head", V)):
+        wm = randn(K, n) * K ** -0.5
+        wv = wm * wm * 1e-6
+        z = randn(M, n)
+        surrogate_kernel(
+            kid, "am_surrogate_matmul_epilogue", am_surrogate_matmul.EPILOGUE,
+            lambda: am_surrogate_matmul.am_surrogate_matmul_epilogue_cuda(xs, wm, wv, z),
+            lambda: ref.am_surrogate_epilogue_ref(xs, wm, wv, z, ck),
+            lambda: b5_library(xs, wm, wv, z), f"({M}, {K}) @ ({K}, {n})",
+            4 * M * K * n, (M * K + 2 * K * n + 2 * M * n) * 4,
+            iters=50 if n == N else 10, plain_iters=2 if n == N else 1,
+            plain_warmup=1 if n == N else 0)
+        del wm, wv, z
+    wmp = randn(POP, K, N) * K ** -0.5
+    wvp = wmp * wmp * 1e-6
+    zp = randn(M, N)
+    surrogate_kernel(
+        "B5-pop8", "am_surrogate_matmul_epilogue", am_surrogate_matmul.EPILOGUE,
+        lambda: am_surrogate_matmul.am_surrogate_matmul_epilogue_cuda(xs, wmp, wvp, zp),
+        lambda: ref.am_surrogate_epilogue_ref(xs, wmp, wvp, zp, ck),
+        lambda: b5_library(xs, wmp, wvp, zp), f"({M}, {K}) @ ({POP}, {K}, {N})",
+        4 * POP * M * K * N, (M * K + 2 * POP * K * N + M * N + POP * M * N) * 4, iters=20)
+    del wmp, wvp, zp
+    wm6 = randn(K, N) * K ** -0.5
+    wv6 = wm6 * wm6 * 1e-6
+    surrogate_kernel(
+        "B6", "am_surrogate_moments_folded", am_surrogate_matmul.FOLDED,
+        lambda: am_surrogate_matmul.am_surrogate_moments_folded_cuda(xs, wm6, wv6),
+        lambda: ref.am_surrogate_moments_ref(xs, wm6, wv6, ck),
+        lambda: (torch.matmul(xs, wm6), torch.matmul(xs * xs, wv6)),
+        f"({M}, {K}) @ ({K}, {N})", 4 * M * K * N, (M * K + 2 * K * N + 2 * M * N) * 4,
+        iters=50)
+    mu7 = randn(K, N) * 1e-3
+    sg7 = randn(K, N).abs() * 1e-3
+
+    def b7_library():
+        return (torch.matmul(xs, wm6 * (1.0 + mu7)),
+                torch.matmul(xs * xs, (wm6 * wm6) * (sg7 * sg7)))
+
+    surrogate_kernel(
+        "B7", "am_surrogate_moments", am_surrogate_matmul.UNFOLDED,
+        lambda: am_surrogate_matmul.am_surrogate_moments_cuda(xs, wm6, mu7, sg7),
+        lambda: ref.am_surrogate_unfolded_ref(xs, wm6, mu7, sg7, ck), b7_library,
+        f"({M}, {K}) @ ({K}, {N})", 4 * M * K * N, (M * K + 3 * K * N + 2 * M * N) * 4,
+        iters=50)
+    del xs, wm6, wv6, mu7, sg7
+    torch.cuda.empty_cache()
+
     for kid, k in kernels.items():
         emit({"phase": "kernel", "id": kid, "name": k["name"], "shape": k["shape"],
-              "multiplies": k["multiplies"], "max_abs_err": k["max_abs_err"],
-              "max_ulp": k["max_ulp"], "bitwise": k["bitwise"], "ms": k["ms"],
-              "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
-              "bound_by": k["bound"][1], "library_ms": None})
+              "multiplies": k.get("multiplies"), "flops": k.get("flops"),
+              "max_abs_err": k["max_abs_err"], "max_ulp": k["max_ulp"],
+              "bitwise": k["bitwise"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+              "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+              "library_ms": k.get("library_ms")})
         if not k["bitwise"]:
             fail(f"{kid} differs from its plain version (max ulp {k['max_ulp']})")
 
+    def reset_counts():
+        for k in kernels.values():
+            k["kernel"].launches = 0
+
+    def read_counts():
+        return {kid: k["kernel"].launches for kid, k in kernels.items()
+                if "-" not in kid}
+
     # -- 4. main path -------------------------------------------------------------
-    for k in kernels.values():
-        k["kernel"].launches = 0
+    reset_counts()
     wall = {}
 
     def step(name, fn):
@@ -302,7 +465,7 @@ def main() -> int:
         params, knee, device=dev))
     y3 = step("engine_am_matmul_bitexact", lambda: engine.am_matmul(
         x3, w3, vids3_np, backend="bitexact_cuda"))
-    launches = {kid: k["kernel"].launches for kid, k in kernels.items()}
+    launches = read_counts()
     emit({"phase": "main_path", "n_images": 2000, "accuracy_exact": acc_exact,
           "uniform_study": {v: {"accuracy": r["accuracy"], "pdp_pj": r["pdp_pj"]}
                             for v, r in uni.items()},
@@ -315,11 +478,78 @@ def main() -> int:
           "knee_accuracy_bitexact": acc_knee,
           "knee_surrogate_accuracy_512": 1.0 - study["knee_objectives"][2],
           "displacement": disp, "launches": launches, "wall_s": wall})
-    for kid, nl in launches.items():
-        if nl == 0:
+    for kid in ("B2", "B3", "B4"):
+        if launches[kid] == 0:
             fail(f"the main path launched {kid} no time")
 
-    # -- 5. checks ----------------------------------------------------------------
+    # -- 5. lm_forward: xlstm-125m at full width --------------------------------
+    lm_cfg = xlstm_125m.CONFIG
+    lm_params = transformer.init_params(lm_cfg, seed=0, device=dev)
+    lm_batch = synthetic.batch_for(lm_cfg, 0, global_batch=8, seq=512)
+    lm_numerics = {
+        "exact": amlinear.EXACT,
+        "surrogate_fused:uniform:pm_csi": amlinear.NumericsConfig(
+            mode="surrogate", policy="uniform:pm_csi", backend="surrogate_fused"),
+        "surrogate_fused:rr:8": amlinear.NumericsConfig(
+            mode="surrogate", policy="rr:8", backend="surrogate_fused"),
+    }
+    lm = {}
+    with torch.no_grad():
+        for name, numerics in lm_numerics.items():
+            cfg_n = lm_cfg.with_numerics(numerics)
+            transformer.loss_fn(lm_params, lm_batch, cfg_n, key=1)  # warm-up
+            torch.cuda.synchronize()
+            runs = []
+            for _ in range(3):
+                reset_counts()
+                t = time.perf_counter()
+                loss = float(transformer.loss_fn(lm_params, lm_batch, cfg_n, key=1))
+                torch.cuda.synchronize()
+                runs.append((loss, time.perf_counter() - t, read_counts()))
+            lm[name] = {"loss": runs[0][0], "wall_s": [r[1] for r in runs],
+                        "losses_equal": len({r[0] for r in runs}) == 1,
+                        "launches": runs[0][2],
+                        "launches_equal": all(r[2] == runs[0][2] for r in runs)}
+        # Where the surrogate forward's time goes: one more rr:8 forward under
+        # torch.profiler, outside the counted windows.
+        profile = profile_forward(lambda: transformer.loss_fn(
+            lm_params, lm_batch, lm_cfg.with_numerics(lm_numerics["surrogate_fused:rr:8"]),
+            key=1))
+    del lm_params
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_forward", "arch": lm_cfg.name, "n_layers": lm_cfg.n_layers,
+          "d_model": lm_cfg.d_model, "vocab": lm_cfg.vocab, "dtype": lm_cfg.dtype,
+          "batch": [8, 512], "rows_per_projection": 8 * 512, "runs": lm,
+          "profile_rr8": profile})
+    for name, r in lm.items():
+        want = 0 if name == "exact" else 61
+        if not r["launches_equal"] or r["launches"]["B5"] != want or any(
+                n for kid, n in r["launches"].items() if kid != "B5"):
+            fail(f"lm_forward {name}: launches {r['launches']}, expected B5 = {want} "
+                 "in each forward and no other kernel")
+    launches["B5"] = sum(3 * r["launches"]["B5"] for r in lm.values())
+
+    # -- 6. engine: the surrogate_fused matmul's moments (B6), the noisy
+    # unfolded matmul (B7), at a projection's shape ------------------------------
+    x6 = torch.randn((M, K), generator=gen, device=dev)
+    w6 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    reset_counts()
+    t = time.perf_counter()
+    mean6, var6 = engine.am_matmul(x6, w6, "rr:8", backend="surrogate_fused", key=2,
+                                   return_moments=True)
+    mu6, sg6 = engine.device_moment_maps(engine.canonical_matmul_map("rr:8", K, N),
+                                         device=dev)
+    y7 = ops.am_surrogate_matmul(x6, w6, mu6, sg6, key=2)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t
+    engine_counts = read_counts()
+    emit({"phase": "engine", "wall_s": engine_s, "launches": engine_counts})
+    for kid in ("B6", "B7"):
+        if engine_counts[kid] != 1:
+            fail(f"the engine path launched {kid} {engine_counts[kid]} times, not once")
+        launches[kid] = engine_counts[kid]
+
+    # -- 7. checks ----------------------------------------------------------------
     mu_cpu, sg_cpu = surrogate.moment_tables("cpu")
     calib_same = bool((mu_sg[0].view(np.uint32) == mu_cpu.view(np.uint32)).all()
                       and (mu_sg[1].view(np.uint32) == sg_cpu.view(np.uint32)).all())
@@ -331,6 +561,18 @@ def main() -> int:
         params_cpu = {k: t.cpu() for k, t in params.items()}
         f_cpu = cnn.PaperCNN(params_cpu).features(torch.from_numpy(x4), cfg).numpy()
     ams = [v for v in uni if v != "exact"]
+    # The SMOKE LM in float32 through B5 with the noise-free policy
+    # uniform:exact (mu = sigma = 0), on the card and on the CPU.
+    smoke = dataclasses.replace(xlstm_125m.SMOKE, dtype="float32").with_numerics(
+        amlinear.NumericsConfig.for_backend("surrogate_fused", "uniform:exact"))
+    smoke_params = transformer.init_params(smoke, seed=1, device="cpu")
+    smoke_batch = synthetic.batch_for(smoke, 1, global_batch=2, seq=40)
+    with torch.no_grad():
+        l_cpu = transformer.forward(smoke_params, smoke_batch, smoke, key=3)
+        l_card = transformer.forward(weights.to_device(smoke_params, dev), smoke_batch,
+                                     smoke, key=3).cpu()
+    smoke_err = float((l_card - l_cpu).abs().max() / l_cpu.abs().max())
+    exact_loss = lm["exact"]["loss"]
     checks = {
         "calibration_card_equals_cpu_bitwise": calib_same,
         "bitexact_cnn_features_card_equal_cpu_bitwise": bool(
@@ -343,18 +585,27 @@ def main() -> int:
         and tuple(y3.shape) == (mm, nn),
         "knee_pdp_below_exact": hwmodel.sequence_cost(knee)["pdp_pj"]
         < uni["exact"]["pdp_pj"],
+        "lm_losses_finite": all(np.isfinite(r["loss"]) for r in lm.values()),
+        "lm_losses_repeat_exactly": all(r["losses_equal"] for r in lm.values()),
+        "lm_surrogate_losses_within_1pct_of_exact": all(
+            abs(r["loss"] - exact_loss) <= 0.01 * exact_loss for r in lm.values()),
+        "smoke_lm_b5_card_vs_cpu_within_5e-4": smoke_err <= 5e-4,
+        "engine_moments_and_b7_finite": bool(torch.isfinite(mean6).all()
+                                             and (var6 >= 0).all()
+                                             and torch.isfinite(y7).all()),
     }
-    emit({"phase": "checks", **checks})
+    emit({"phase": "checks", "smoke_lm_rel_err": smoke_err, **checks})
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"checks failed: {bad}")
 
     emit({"kernels": [{
         "name": k["name"], "route": "cuda", "source": k["source"],
-        "replaces": k["replaces"], "launches": launches[kid],
+        "replaces": k["replaces"], "launches": launches[kid.split("-")[0]],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound"][0], "bound_by": k["bound"][1], "library_ms": None,
-        "id": kid, "shape": k["shape"], "multiplies": k["multiplies"],
+        "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+        "library_ms": k.get("library_ms"), "id": kid, "shape": k["shape"],
+        "multiplies": k.get("multiplies"), "flops": k.get("flops"),
         "max_ulp": k["max_ulp"], "tolerance": "bitwise",
     } for kid, k in kernels.items()]})
     print(smi, flush=True)

@@ -9,3 +9,12 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def check_device(device) -> torch.device:
+    """The device asked for; raises when it is a CUDA device that is absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but torch.cuda."
+                           "is_available() is False")
+    return dev

@@ -17,7 +17,8 @@ the fidelity:
                                              their plain versions on the CPU
   surrogate_torch   calibrated moments       per-genome torch matmul / conv
   surrogate_fused   calibrated moments       conv: population im2col GEMMs;
-                                             matmul: not yet ported (B5)
+                                             matmul: folded weights and one
+                                             launch of B5 (B6 for moments)
 
 ``backend=None`` picks exact without a (non-trivial) map, bit-exact for
 small work (``bitexact_cuda`` for CUDA tensors), the fused surrogate
@@ -41,10 +42,6 @@ from repro_torch.kernels import ops, ref
 
 # Auto-selector threshold: emulated multiplies per bit-exact call.
 BITEXACT_AUTO_MAX_MULS = 1 << 14
-
-_B5_TODO = ("the surrogate_fused matmul (and return_moments on it) runs the "
-            "fused surrogate GEMM kernels B5/B6 in the JAX package; they are "
-            "not ported yet (ROADMAP.md, queue B, B5)")
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +71,9 @@ class CanonicalMap:
 
     vids: np.ndarray
     pop: bool
+    # (policy, tile_k, tile_n) when vids expand a policy's tile grid: the
+    # device moment maps of such a map are built once and cached.
+    policy: tuple | None = None
 
     @property
     def population(self) -> int:
@@ -101,7 +101,7 @@ def canonical_matmul_map(slot_map, k: int, n: int, *, tile_k: int = 128,
     if slot_map is None:
         return CanonicalMap(np.zeros((k, n), np.int32), False)
     if isinstance(slot_map, str):
-        slot_map = _policy_sequence(slot_map, gk * gn)
+        return _policy_matmul_map(slot_map, k, n, tile_k, tile_n)
     arr = np.asarray(slot_map, np.int32)
 
     def expand(a: np.ndarray) -> np.ndarray:
@@ -121,6 +121,17 @@ def canonical_matmul_map(slot_map, k: int, n: int, *, tile_k: int = 128,
     if single:
         return CanonicalMap(expand(arr), False)
     return CanonicalMap(np.stack([expand(a) for a in arr]), True)
+
+
+@functools.lru_cache(maxsize=256)
+def _policy_matmul_map(policy: str, k: int, n: int, tile_k: int,
+                       tile_n: int) -> CanonicalMap:
+    """A policy's (K, N) map, expanded on the host once per shape (read-only)."""
+    gk, gn = -(-k // tile_k), -(-n // tile_n)
+    grid = _policy_sequence(policy, gk * gn).reshape(gk, gn)
+    vids = np.repeat(np.repeat(grid, tile_k, 0), tile_n, 1)[:k, :n]
+    vids.setflags(write=False)
+    return CanonicalMap(vids, False, (policy, tile_k, tile_n))
 
 
 def canonical_conv_map(slot_map, f: int, kh: int, kw: int) -> CanonicalMap:
@@ -156,6 +167,53 @@ def moment_maps(vids: np.ndarray, noise_scale: float = 1.0, device="cuda"):
     mu_t = (mu_t * noise_scale).astype(np.float32)
     sg_t = (sg_t * noise_scale).astype(np.float32)
     return mu_t[vids], sg_t[vids]
+
+
+def _scaled_tables(noise_scale: float, device):
+    """The seed (mu, sigma) tables times noise_scale, in numpy float32 as
+    ``moment_maps`` scales them, on ``device``."""
+    mu_t, sg_t = surrogate.moment_tables(device)
+    return (torch.from_numpy((t * noise_scale).astype(np.float32)).to(device)
+            for t in (mu_t, sg_t))
+
+
+@functools.lru_cache(maxsize=64)
+def _policy_moment_maps(policy: str, tile_k: int, tile_n: int, k: int, n: int,
+                        noise_scale: float, device: str):
+    """Device (mu, sigma) (K, N) maps of a policy: the (gk, gn) tile grid is
+    gathered from the tables and expanded on the device, once per shape."""
+    gk, gn = -(-k // tile_k), -(-n // tile_n)
+    grid = torch.from_numpy(_policy_sequence(policy, gk * gn).reshape(gk, gn)
+                            .astype(np.int64)).to(device)
+
+    def expand(t):
+        return (t[grid].repeat_interleave(tile_k, 0)[:k]
+                .repeat_interleave(tile_n, 1)[:, :n].contiguous())
+
+    return tuple(expand(t) for t in _scaled_tables(noise_scale, device))
+
+
+def device_moment_maps(maps: CanonicalMap, noise_scale: float = 1.0, device="cuda"):
+    """Per-slot (mu, sigma) float32 maps of a canonical map as tensors on
+    ``device``, (P?, ...) like maps.vids; bitwise ``moment_maps``' values."""
+    dev = torch.device(device)
+    if maps.policy is not None:
+        policy, tile_k, tile_n = maps.policy
+        k, n = maps.vids.shape
+        return _policy_moment_maps(policy, tile_k, tile_n, k, n, float(noise_scale),
+                                   str(dev))
+    idx = torch.from_numpy(np.asarray(maps.vids, np.int64)).to(dev)
+    return tuple(t[idx] for t in _scaled_tables(noise_scale, dev))
+
+
+def fold_matmul_weights(w: torch.Tensor, maps: CanonicalMap, *,
+                        noise_scale: float = 1.0):
+    """Fold per-slot moments into (P?, K, N) mean/var matmul weights on w's
+    device: ``w * (1 + mu)`` and ``(w * w) * (sg * sg)``, elementwise float32,
+    bitwise the reference's fold. w: (K, N) tensor of any float type."""
+    mu, sg = device_moment_maps(maps, noise_scale, w.device)
+    wf = w.float()
+    return wf * (1.0 + mu), (wf * wf) * (sg * sg)
 
 
 def fold_conv_gemm_weights(w, maps: CanonicalMap, *, noise_scale: float = 1.0,
@@ -331,8 +389,7 @@ def _surrogate_matmul_torch(ctx, x, w, cmap, key):
         _require_key(key, "surrogate_torch")
 
     def one(xs, m):
-        mu, sg = (torch.from_numpy(t).to(xs.device)
-                  for t in moment_maps(m.vids, ctx.noise_scale, xs.device))
+        mu, sg = device_moment_maps(m, ctx.noise_scale, xs.device)
         xf, wf = xs.float(), w.float()
         mean = xf @ (wf * (1.0 + mu))
         var = (xf * xf) @ ((wf * wf) * (sg * sg))
@@ -342,7 +399,21 @@ def _surrogate_matmul_torch(ctx, x, w, cmap, key):
 
 
 def _surrogate_matmul_fused(ctx, x, w, cmap, key):
-    raise NotImplementedError(_B5_TODO)
+    """Moments folded into (P?, K, N) weights once per call; both
+    contractions and the noise epilogue are one launch of B5 (z drawn for the
+    single-genome (M, N) output and shared across the population). Moments
+    without a population are one launch of B6; with one they are plain
+    einsums, as in the reference."""
+    _require_key(key, "surrogate_fused")
+    wm, wv = fold_matmul_weights(w, cmap, noise_scale=ctx.noise_scale)
+    xf = x.float()
+    if ctx.return_moments:
+        if not cmap.pop:
+            return ops.am_surrogate_moments_folded(xf, wm, wv)
+        spec = "pmk,pkn->pmn" if ctx.pop_x else "mk,pkn->pmn"
+        return torch.einsum(spec, xf, wm), torch.einsum(spec, xf * xf, wv)
+    z = surrogate.crn_normal(key, (xf.shape[-2], wm.shape[-1]), x.device)
+    return ops.am_surrogate_matmul_epilogue(xf, wm, wv, z)
 
 
 def _surrogate_conv2d_torch(ctx, x, w, cmap, key):
@@ -350,8 +421,7 @@ def _surrogate_conv2d_torch(ctx, x, w, cmap, key):
         _require_key(key, "surrogate_torch")
 
     def one(xs, m):
-        mu, sg = (torch.from_numpy(t).to(xs.device)
-                  for t in moment_maps(m.vids, ctx.noise_scale, xs.device))
+        mu, sg = device_moment_maps(m, ctx.noise_scale, xs.device)
         mean = ref.conv2d_exact_ref(xs, w * (1.0 + mu[..., None]))
         var = ref.conv2d_exact_ref(xs * xs, (w * w) * (sg * sg)[..., None])
         return (mean, var) if ctx.return_moments else _noise(key, mean, var)
@@ -406,6 +476,9 @@ _BACKENDS = {
 }
 
 
+BACKEND_NAMES = tuple(_BACKENDS)
+
+
 def get_backend(name: str) -> BackendSpec:
     try:
         return _BACKENDS[name]
@@ -448,8 +521,6 @@ def am_matmul(x: torch.Tensor, w: torch.Tensor, slot_map=None, *, backend=None,
     name = backend or select_backend(
         "matmul", has_map=slot_map is not None and bool(np.any(cmap.vids)),
         work=m * k * n * cmap.population, device=x.device)
-    if name == "surrogate_fused" and return_moments:
-        raise NotImplementedError(_B5_TODO)
     ctx = _Ctx(return_moments, pop_x, noise_scale)
     out = get_backend(name).matmul(ctx, x2, w, cmap, key)
 

@@ -20,7 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import weights
+from repro_torch import check_device, weights
 from repro_torch.core import engine, hwmodel, interleave, nsga2, schemes, surrogate
 from repro_torch.data import cifar_like
 from repro_torch.models import cnn
@@ -28,15 +28,6 @@ from repro_torch.models import cnn
 ARTIFACTS = pathlib.Path(__file__).resolve().parents[3] / "artifacts"
 PARAMS_FILE = ARTIFACTS / "paper_cnn_params.npz"
 N_SLOTS = cnn.N_SLOTS
-
-
-def check_device(device) -> torch.device:
-    """The device asked for; raises when it is a CUDA device that is absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but torch.cuda."
-                           "is_available() is False")
-    return dev
 
 
 def load_params(device="cuda") -> dict[str, torch.Tensor]:

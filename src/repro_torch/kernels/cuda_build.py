@@ -28,7 +28,8 @@ BUILD_DIR = pathlib.Path(__file__).with_name("_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
-KERNEL_SOURCES = ("approx_conv.cu", "approx_matmul.cu", "bitexact_emulator.cu")
+KERNEL_SOURCES = ("approx_conv.cu", "approx_matmul.cu", "bitexact_emulator.cu",
+                  "am_surrogate_matmul.cu")
 
 
 def nvcc() -> str:

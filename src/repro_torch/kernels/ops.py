@@ -5,9 +5,9 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 which raises if it cannot build or launch. There is no other path.
 
 The Pallas entry points padded shapes to block multiples and cropped the
-result; the CUDA kernels launch one thread per output in fixed blocks of 256
-threads and mask the ragged end themselves, so nothing is padded here. The
-block chooser and its tuning cache have no counterpart yet.
+result; the CUDA kernels mask the ragged ends themselves, so nothing is
+padded here. The block chooser and its tuning cache (and so the reference's
+``block=`` and ``impl=`` arguments) have no counterpart yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -16,12 +16,12 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import fp32_mul, schemes
+from repro_torch.core import fp32_mul, schemes, surrogate
 from repro_torch.kernels import ref
 
-# The k block of the bit-exact matmul's pinned summation order (the Pallas
-# kernel's default bk). CPU and CUDA use the same order, so they agree
-# bitwise.
+# The k block of the pinned summation order of the bit-exact matmul (the
+# Pallas kernel's default bk) and of the surrogate matmuls. CPU and CUDA use
+# the same order, so they agree bitwise.
 MATMUL_CHUNK_K = 16
 
 
@@ -90,3 +90,62 @@ def fp32_multiply_stacked(a: torch.Tensor, b: torch.Tensor, scheme_maps) -> torc
     from repro_torch.kernels import bitexact_emulator
 
     return bitexact_emulator.fp32_multiply_stacked_cuda(a, b, masks)
+
+
+# ---------------------------------------------------------------------------
+# Surrogate matmul: moments, folded moments, fused noise epilogue (B5-B7)
+# ---------------------------------------------------------------------------
+
+
+def _f32(*ts: torch.Tensor):
+    return tuple(t.float().contiguous() for t in ts)
+
+
+def am_surrogate_moments(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
+                         sg: torch.Tensor):
+    """(mean, var) of the surrogate AM matmul from the unfolded per-slot
+    moments: x (M,K), w/mu/sg (K,N) -> two (M,N) float32. B7 on the card."""
+    x, w, mu, sg = _f32(x, w, mu, sg)
+    if _on(x) == "cpu":
+        return ref.am_surrogate_unfolded_ref(x, w, mu, sg, MATMUL_CHUNK_K)
+    from repro_torch.kernels import am_surrogate_matmul
+
+    return am_surrogate_matmul.am_surrogate_moments_cuda(x, w, mu, sg)
+
+
+def am_surrogate_moments_folded(x: torch.Tensor, w_mean: torch.Tensor,
+                                w_var: torch.Tensor):
+    """(mean, var) from folded weights w_mean = w(1+mu), w_var = w^2 sg^2
+    (``engine.fold_matmul_weights``): x (M,K), weights (K,N). B6 on the card."""
+    x, w_mean, w_var = _f32(x, w_mean, w_var)
+    if _on(x) == "cpu":
+        return ref.am_surrogate_moments_ref(x, w_mean, w_var, MATMUL_CHUNK_K)
+    from repro_torch.kernels import am_surrogate_matmul
+
+    return am_surrogate_matmul.am_surrogate_moments_folded_cuda(x, w_mean, w_var)
+
+
+def am_surrogate_matmul_epilogue(x: torch.Tensor, w_mean: torch.Tensor,
+                                 w_var: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """out = x @ w_mean + z * sqrt(max((x*x) @ w_var, 0)), one launch of B5
+    on the card.
+
+    x (M,K) or (P,M,K); w_mean/w_var (K,N) or (P,K,N); z (M,N), the caller's
+    common-random-numbers draw, shared across P. The output has the
+    population axis iff the weights do.
+    """
+    x, w_mean, w_var, z = _f32(x, w_mean, w_var, z)
+    if _on(x) == "cpu":
+        return ref.am_surrogate_epilogue_ref(x, w_mean, w_var, z, MATMUL_CHUNK_K)
+    from repro_torch.kernels import am_surrogate_matmul
+
+    return am_surrogate_matmul.am_surrogate_matmul_epilogue_cuda(x, w_mean, w_var, z)
+
+
+def am_surrogate_matmul(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
+                        sg: torch.Tensor, key: int) -> torch.Tensor:
+    """Noise-complete surrogate AM matmul mean + z*sqrt(max(var, 0)): the
+    moments from B7, z drawn from ``key`` for the (M, N) output."""
+    mean, var = am_surrogate_moments(x, w, mu, sg)
+    z = surrogate.crn_normal(key, mean.shape, mean.device)
+    return mean + z * torch.sqrt(torch.clamp(var, min=0.0))

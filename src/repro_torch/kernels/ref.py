@@ -117,3 +117,42 @@ def am_conv2d_surrogate_ref(x, w, slot_map, z, noise_scale: float = 1.0,
     mean = conv2d_exact_ref(x, w * (1.0 + mu))
     var = conv2d_exact_ref(x * x, (w * w) * (sg * sg))
     return mean + z * torch.sqrt(torch.clamp(var, min=0.0))
+
+
+def am_surrogate_moments_ref(x, w_mean, w_var, chunk_k: int = 16):
+    """(mean, var) = (x @ w_mean, (x*x) @ w_var) in the order of B5-B7.
+
+    x (M,K) or (P,M,K), w_mean/w_var (K,N) or (P,K,N), float32; the result
+    broadcasts the population axes, (P?, M, N).
+
+    Order: an accumulator starts at 0.0; k runs in blocks of ``chunk_k``; a
+    block sum starts at 0.0 and adds its products one after another in k
+    order, then is added to the accumulator. Each product and each sum is
+    its own rounded float32 op, as in the kernel.
+    """
+    m, k = x.shape[-2:]
+    n = w_mean.shape[-1]
+    xq = x * x
+    lead = torch.broadcast_shapes(x.shape[:-2], w_mean.shape[:-2])
+    mean = torch.zeros(lead + (m, n), dtype=torch.float32, device=x.device)
+    var = torch.zeros_like(mean)
+    for k0 in range(0, k, chunk_k):
+        bm, bv = torch.zeros_like(mean), torch.zeros_like(mean)
+        for kk in range(k0, min(k0 + chunk_k, k)):
+            bm = bm + x[..., :, kk, None] * w_mean[..., kk, None, :]
+            bv = bv + xq[..., :, kk, None] * w_var[..., kk, None, :]
+        mean = mean + bm
+        var = var + bv
+    return mean, var
+
+
+def am_surrogate_unfolded_ref(x, w, mu, sg, chunk_k: int = 16):
+    """(mean, var) from the unfolded weights, as B7 forms them:
+    w_mean = w*(1+mu), w_var = (w*w)*(sg*sg), then the pinned order."""
+    return am_surrogate_moments_ref(x, w * (1.0 + mu), (w * w) * (sg * sg), chunk_k)
+
+
+def am_surrogate_epilogue_ref(x, w_mean, w_var, z, chunk_k: int = 16):
+    """B5: mean + z*sqrt(max(var, 0)), z (M,N) shared across the population."""
+    mean, var = am_surrogate_moments_ref(x, w_mean, w_var, chunk_k)
+    return mean + z * torch.sqrt(torch.clamp(var, min=0.0))

@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine, fp32_mul, schemes
-from repro_torch.data import cifar_like
+from repro_torch.configs import xlstm_125m
+from repro_torch.core import amlinear, engine, fp32_mul, schemes, surrogate
+from repro_torch.data import cifar_like, synthetic
 from repro_torch.experiments import paper_cnn
-from repro_torch.kernels import approx_conv, approx_matmul, bitexact_emulator, ops, ref
-from repro_torch.models import cnn
+from repro_torch.kernels import (am_surrogate_matmul, approx_conv, approx_matmul,
+                                 bitexact_emulator, ops, ref)
+from repro_torch.models import cnn, transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +93,63 @@ def test_engine_and_cnn_on_card_equal_cpu(dev):
         f_cpu = cnn.PaperCNN({k: v.cpu() for k, v in params.items()}).features(
             torch.from_numpy(xs), cfg)
     np.testing.assert_array_equal(_bits(f_card), _bits(f_cpu))
+
+
+@pytest.mark.parametrize("p, pop_x", [(0, False), (3, False), (3, True)])
+@pytest.mark.parametrize("mkn", [(37, 45, 29), (130, 70, 4), (64, 16, 200)])
+def test_b5_b6_b7_bitwise_vs_plain_ragged_shapes(dev, p, pop_x, mkn):
+    m, k, n = mkn
+    rng = np.random.default_rng(m + k + n + p)
+    x = _t(rng.standard_normal((p, m, k) if pop_x else (m, k)).astype(np.float32), dev)
+    wshape = (p, k, n) if p else (k, n)
+    wm = _t(rng.standard_normal(wshape).astype(np.float32), dev)
+    wv = _t(rng.standard_normal(wshape).astype(np.float32), dev)  # some var < 0
+    z = _t(rng.standard_normal((m, n)).astype(np.float32), dev)
+    n0 = am_surrogate_matmul.EPILOGUE.launches
+    got = am_surrogate_matmul.am_surrogate_matmul_epilogue_cuda(x, wm, wv, z)
+    assert am_surrogate_matmul.EPILOGUE.launches == n0 + 1
+    np.testing.assert_array_equal(_bits(got), _bits(ref.am_surrogate_epilogue_ref(
+        x, wm, wv, z)))
+    if p:
+        return
+    for g, w in zip(am_surrogate_matmul.am_surrogate_moments_folded_cuda(x, wm, wv),
+                    ref.am_surrogate_moments_ref(x, wm, wv)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    mu = wv * 1e-3
+    for g, w in zip(am_surrogate_matmul.am_surrogate_moments_cuda(x, wm, mu, wv),
+                    ref.am_surrogate_unfolded_ref(x, wm, mu, wv)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_surrogate_fused_engine_on_card_equals_cpu(dev, monkeypatch):
+    """The fold on the device and B5/B6 on the card give the CPU plain
+    path's bits, given the same z."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 50, 300)).astype(np.float32)
+    w = rng.standard_normal((300, 130)).astype(np.float32)
+    z = torch.from_numpy(rng.standard_normal((150, 130)).astype(np.float32))
+    monkeypatch.setattr(surrogate, "crn_normal", lambda key, shape, device="cuda":
+                        z.to(device))
+    for kw in ({"key": 1}, {"key": 1, "return_moments": True}):
+        card = engine.am_matmul(_t(x, dev), _t(w, dev), "rr:8", backend="surrogate_fused",
+                                **kw)
+        cpu = engine.am_matmul(torch.from_numpy(x), torch.from_numpy(w), "rr:8",
+                               backend="surrogate_fused", **kw)
+        for c, h in zip(card if isinstance(card, tuple) else (card,),
+                        cpu if isinstance(cpu, tuple) else (cpu,)):
+            np.testing.assert_array_equal(_bits(c), _bits(h))
+
+
+def test_xlstm_smoke_surrogate_forward_on_card(dev):
+    """Every projection of the SMOKE LM is one B5 launch on the card (21);
+    the surrogate loss is finite and near the exact one."""
+    cfg = xlstm_125m.SMOKE.with_numerics(
+        amlinear.NumericsConfig.for_backend("surrogate_fused", "rr:8"))
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    batch = synthetic.batch_for(cfg, 0, global_batch=2, seq=40)
+    with torch.no_grad():
+        exact = float(transformer.loss_fn(params, batch, cfg.with_numerics(amlinear.EXACT)))
+        n0 = am_surrogate_matmul.EPILOGUE.launches
+        loss = float(transformer.loss_fn(params, batch, cfg, key=3))
+    assert am_surrogate_matmul.EPILOGUE.launches == n0 + 21
+    assert np.isfinite(loss) and abs(loss - exact) <= 0.01 * exact

@@ -163,11 +163,14 @@ def test_matmul_backends_vs_jax_and_fused_matmul_not_ported():
         got = engine.am_matmul(_t(x), _t(w), vids, backend=backend)
         assert got.shape == (2, 3, 6)
         _close(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="B5"):
-        engine.am_matmul(_t(x), _t(w), vids, backend="surrogate_fused", key=0)
-    with pytest.raises(NotImplementedError, match="B5"):
-        engine.am_matmul(_t(x), _t(w), vids, backend="surrogate_fused",
-                         return_moments=True)
+    # The surrogate_fused matmul is ported (B5, B6): it runs, keeps the lead
+    # dims, and matches the per-call surrogate_torch spelling.
+    fused = engine.am_matmul(_t(x), _t(w), vids, backend="surrogate_fused", key=0)
+    _close(fused.numpy(), engine.am_matmul(_t(x), _t(w), vids, backend="surrogate_torch",
+                                           key=0).numpy())
+    moments = engine.am_matmul(_t(x), _t(w), vids, backend="surrogate_fused", key=0,
+                               return_moments=True)
+    assert fused.shape == moments[0].shape == moments[1].shape == (2, 3, 6)
 
 
 def test_surrogate_matmul_moments_vs_jax(tables):

@@ -249,7 +249,8 @@ def test_build_needs_nvcc_and_hashes_sources(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.nvcc()
     paths = {cuda_build.library_path(s) for s in cuda_build.KERNEL_SOURCES}
-    assert len(paths) == 3 and all(p.parent == cuda_build.BUILD_DIR for p in paths)
+    assert len(paths) == len(cuda_build.KERNEL_SOURCES) == 4
+    assert all(p.parent == cuda_build.BUILD_DIR for p in paths)
     assert cuda_build.library_path("approx_conv.cu") == cuda_build.library_path(
         "approx_conv.cu")
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ("-G",))
